@@ -1,11 +1,11 @@
 # -*- coding: utf-8 -*-
-"""Multi-chip fitting over a jax.sharding.Mesh: repetitions shard over
+"""Multi-device fitting over a jax.sharding.Mesh: repetitions shard over
 the "rep" axis (pure data parallelism), and optionally the q grid over
 "q" with psum-completed χ² reductions.  Accept decisions are invariant
 to the q-split (float64-accumulated solve), so results match
 single-chip runs exactly.
 
-Run on a multi-chip host, or simulate one on CPU:
+Run on a multi-GPU host, or simulate one on CPU:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
     JAX_PLATFORMS=cpu python examples/multichip.py path/to/data.dat
@@ -20,22 +20,13 @@ from mcsas_tpu.parallel import make_mesh
 
 
 def main(path):
-    # pick the platform exposing the most devices: plugins that ignore
-    # JAX_PLATFORMS (e.g. a remote-attached single chip) would otherwise
-    # shadow the virtual CPU mesh this demo asks for
     devices = jax.devices()
-    try:
-        cpus = jax.devices("cpu")
-        if len(cpus) > len(devices):
-            devices = cpus
-    except RuntimeError:
-        pass
     n_dev = len(devices)
     print(f"{n_dev} devices: {devices[0].platform}")
     # rep-only layout (n_dev × 1): zero collectives; use
     # (n_dev // 2, 2) to also shard the q axis on very fine grids —
     # every tier (quadrature, param-table, smeared) shards either way
-    mesh = make_mesh((n_dev, 1), devices)
+    mesh = make_mesh((n_dev, 1))
 
     data = mt.load(path)
     cfg = McSASConfig(num_contribs=300, num_reps=2 * n_dev,

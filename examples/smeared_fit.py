@@ -3,7 +3,7 @@
 (reference smearing: src/mcsas/dataobj/sasconfig.py:105-200) and fit a
 quadrature model — the smeared-intensity param-table tier keeps the MC
 loop at table speed, and the float64 post analysis applies the same
-contraction (accelerator-assisted on TPU, post_compute='auto').
+contraction (accelerator-assisted on a GPU, post_compute='auto').
 
     python examples/smeared_fit.py path/to/data.dat
 """

@@ -227,8 +227,7 @@ def prewarm_post(data: SASData, bound: BoundModel, cfg: McSASConfig,
     The post pass compiles its own programs (f64 exact-rule intensity
     bank, histogram reductions) outside the engine's launch plan — for
     quadrature models those dominate what a first fit still pays after
-    ``engine.prewarm()`` (measured: kholodenko 452 s of post compiles vs
-    0.15 s warm).  Called by ``fit(..., prewarm=True)``."""
+    ``engine.prewarm()``.  Called by ``fit(..., prewarm=True)``."""
     import math as _math
     mid = np.asarray([[_math.sqrt(max(lo, 1e-300) * hi)
                        for lo, hi in bound.ranges]], np.float64)
@@ -258,8 +257,8 @@ def fit(data: Union[SASData, str, os.PathLike],
     - *stop*: callable polled between chunks for cooperative abort
       (reference stop flag: mcsas.py:240-245,357)
     - *prewarm*: AOT-compile the engine's executables before running
-      (populates the persistent compile cache; moves the remote
-      first-compile cost out of the timed fit — engine.prewarm())
+      (populates the persistent compile cache; moves the first-compile
+      cost out of the timed fit — engine.prewarm())
     """
     if not isinstance(data, SASData):
         data = data_mod.load(data)

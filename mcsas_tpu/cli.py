@@ -18,7 +18,7 @@ from .config import McSASConfig
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="mcsas_tpu",
-        description="TPU-native Monte Carlo size-distribution retrieval "
+        description="GPU Monte Carlo size-distribution retrieval "
                     "for small-angle scattering data")
     # nargs="*": --list-models must work without a data file; the
     # fit path validates non-emptiness itself
@@ -115,10 +115,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prewarm", action="store_true",
                    help="AOT-compile all engine executables (and bake "
                         "parameter tables) before the first fit: moves "
-                        "the remote first-compile cost (up to minutes "
-                        "per executable) out of the timed analysis; "
-                        "compiled programs persist in the compile "
-                        "cache (MCSAS_TPU_COMPILE_CACHE) for later "
+                        "the first-compile cost out of the timed "
+                        "analysis; compiled programs persist in the "
+                        "compile cache ($JAX_COMPILATION_CACHE_DIR, "
+                        "else .jax_cache in the checkout) for later "
                         "processes")
     p.add_argument("--list-models", action="store_true",
                    help="list available models and exit")

@@ -43,8 +43,9 @@ class McSASConfig:
     # criterion and per-slot proposal distribution are unchanged, so the
     # fitted distributions are statistically equivalent.
     candidates_per_step: int = 1
-    # Fused Pallas chunk kernel: "auto" uses it on TPU for eligible models
-    # (elementwise form factors, no smearing), "on" forces (errors if
+    # GPU chunk kernel (ops/mc_kernel.py): "auto" uses it on a GPU for
+    # eligible models (elementwise form factors without smearing, and the
+    # parameter-table tier), "on" requires it (errors off a GPU or if
     # unsupported), "off" always uses the XLA scan path.
     use_pallas: str = "auto"
     # Beyond-reference convergence accelerator (opt-in, default off =

@@ -8,7 +8,7 @@ mcsas/mcsas.py:376-377).  Because the model ``y ≈ A·x + b`` is linear in
 (A, b), the weighted least-squares optimum has a closed form — the 2×2
 normal equations — which is exact, branch-free, and costs four reductions
 over the q grid.  That replaces an iterative host-side optimizer with a few
-fused VPU reductions inside the jitted MC step: the single biggest
+fused reductions inside the jitted MC step: the single biggest
 algorithmic win of the rebuild.
 
 Semantics preserved from the reference:
@@ -68,16 +68,14 @@ def solve_scale_bg(x, c: FitConstants, find_background: bool,
 
     With ``axis_name`` set, ``x`` / ``c.y`` / ``c.u`` are q-axis shards
     inside a ``shard_map`` and every reduction is completed with a psum
-    over the ICI mesh axis — the sequence-parallel analogue called for in
+    over the mesh axis — the sequence-parallel analogue called for in
     SURVEY §2.13 (the q grid is the only "sequence" in this workload).
 
     All reductions accumulate in float64 (cast before the sum/psum) so
     the accept decisions driven by these scalars are invariant to the
     q-axis device split: the residual float64 association difference is
     ~1e-16 relative, far below the float32 rounding of the returned
-    scalars.  On backends that truncate f64 (TPU) this compiles back to
-    the f32 reduction; the invariance guarantee then holds between
-    *matching* platforms, which is what the CPU-mesh tests exercise.
+    scalars.
     """
     dt = x.dtype
     acc = jnp.float64 if jax.config.jax_enable_x64 else dt

@@ -12,7 +12,7 @@ result (q / I / σ and the precomputed smearing contraction), so everything
 under ``jit`` has static shapes.
 
 All arrays here are float64 numpy; the MC engine converts to its compute
-dtype when staging onto the TPU.
+dtype when staging onto the device.
 """
 from __future__ import annotations
 

@@ -31,15 +31,28 @@ def _build() -> bool:
     """Builds the shared library in-tree (best effort)."""
     if not os.path.exists(_SRC_PATH):
         return False
+    # build beside the target and rename: processes that build at once
+    # never load a half-written library
+    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
     try:
         subprocess.run(
             ["g++", "-O3", "-fPIC", "-std=c++17", "-shared",
-             "-o", _LIB_PATH, _SRC_PATH],
+             "-o", tmp, _SRC_PATH],
             check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _LIB_PATH)
         return True
     except (OSError, subprocess.SubprocessError) as e:
         log.debug("native parser build failed: %s", e)
         return False
+
+
+def _stale() -> bool:
+    """True when the library is missing or older than its source, so a
+    library copied along from another build is never loaded."""
+    if not os.path.exists(_LIB_PATH):
+        return True
+    return (os.path.exists(_SRC_PATH)
+            and os.path.getmtime(_SRC_PATH) > os.path.getmtime(_LIB_PATH))
 
 
 def _load():
@@ -47,9 +60,8 @@ def _load():
     if _lib_tried:
         return _lib
     _lib_tried = True
-    if not os.path.exists(_LIB_PATH):
-        if not _build():
-            return None
+    if _stale() and not _build():
+        return None
     try:
         lib = ctypes.CDLL(_LIB_PATH)
     except OSError as e:

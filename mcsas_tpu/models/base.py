@@ -197,7 +197,7 @@ class BoundModel:
     def reference_volume(self) -> float:
         """A float64 host-side normalization volume: the volume at the
         geometric mean of each active sampling range (with fixed params at
-        defaults).  Used to keep w/w_ref ≈ O(1) so the float32 TPU path
+        defaults).  Used to keep w/w_ref ≈ O(1) so the float32 device path
         never underflows (v^(4/3) for nm-scale particles is ~1e-32 in SI)."""
         vals = []
         for (lo, hi) in self.ranges:

@@ -12,6 +12,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..ops.precision import dot
 from ..ops.special import gauss_legendre, j1_over_x, sine_integral
 from ..utils.units import ANGSTROM_SLD, NM, NoUnit
 from .base import ParamSpec, SASModel
@@ -26,8 +27,7 @@ def _gauss_debye_over_u(u):
     small = jnp.abs(u) < thr
     us = jnp.where(small, jnp.ones_like(u), u)
     # exp(-u)-1+u instead of expm1(-u)+u: the cancellation-prone small-u
-    # regime is handled by the series branch, and Mosaic (Pallas TPU)
-    # has no expm1 lowering
+    # regime is handled by the series branch
     closed = jnp.sqrt(2.0 * (jnp.exp(-us) - 1.0 + us)) / us
     # 2(expm1(−u)+u)/u² = 1 − u/3 + u²/12 − u³/60 + u⁴/360 …
     series = jnp.sqrt(1.0 + u * (-1.0 / 3.0 + u * (
@@ -145,7 +145,7 @@ def _kho_p0_sq(q, kuhn, contour, head=None):
 #
 # The composite-GL head above needs nodes ∝ the oscillation frequency
 # F = √(t²−1) (2048 for this model's range corners), which made the exact
-# rule the whole cost of the float64 post pass (BENCHMARKS.md round 2).
+# rule the whole cost of the float64 post pass.
 # This rule is frequency-robust on a fixed 513-node uniform grid:
 #
 # * t>1 (oscillatory): f(z) = sin(Fz)/(F·sinh z); splitting
@@ -351,7 +351,7 @@ def _kho_table_factory(bound, q_grid, dtype, smear=None):
             locs32, sw32 = gq
             p0 = lookup(values, p).reshape(locs32.shape)
             f = p0 * 2.0 * j1_over_x(locs32 * p["radius"])
-            return (f * f) @ sw32
+            return dot(f * f, sw32)
 
         return ff, tab.values, "intensity"
 

@@ -18,6 +18,7 @@ import math
 import jax.numpy as jnp
 import numpy as np
 
+from ..ops.precision import dot
 from ..ops.special import bessel_j1, j1_over_x, sinc_sin
 from ..utils.units import ANGSTROM_SLD, Angle, DEG, NM, NoUnit
 from .base import ParamSpec, SASModel
@@ -116,7 +117,7 @@ def _cyl_iso_table_factory(bound, q_grid, dtype, smear=None):
             p.setdefault(name, 1.0)
         f = _cyl_iso_ff_ab(q32 * p["radius"],
                            q32 * (2.0 * _cyl_half(p)), n, dtype)
-        return (f * f) @ sw32 if smear is not None else f
+        return dot(f * f, sw32) if smear is not None else f
 
     key = ("CylindersIsotropic", n, tab_params,
            tables.grid_fingerprint(q_grid),
@@ -184,7 +185,7 @@ def _psi_grid_table_factory(ff_fn, reads, res_map,
                 p.setdefault(name, 1.0)
             f = ff_fn(qd, p)
             if smear is not None:
-                return (f * f).reshape(locs.shape) @ sw
+                return dot((f * f).reshape(locs.shape), sw)
             return f
 
         key = (ff_fn.__name__, tab_params, int(fixed[div_param]),

@@ -11,6 +11,7 @@ import math
 import jax.numpy as jnp
 import numpy as np
 
+from ..ops.precision import dot
 from ..ops.special import sphere_ff
 from ..utils.units import ANGSTROM_SLD, NM, NoUnit, SLD
 from .base import ParamSpec, SASModel
@@ -76,7 +77,7 @@ def _ell_iso_table_factory(bound, q_grid, dtype, smear=None):
         for name in bound.active:
             p.setdefault(name, 1.0)
         f = _ell_iso_ff_uv(q32 * p["a"], q32 * _ell_iso_rc(p), n, dtype)
-        return (f * f) @ sw32 if smear is not None else f
+        return dot(f * f, sw32) if smear is not None else f
 
     key = ("EllipsoidsIsotropic", n, tab_params,
            tables.grid_fingerprint(q_grid),
@@ -205,7 +206,7 @@ def _ell_cs_table_factory(bound, q_grid, dtype, smear=None):
         f = _ell_cs_ff(q32, p)
         if smear is not None:
             f = f.reshape(locs.shape)
-            return (f * f) @ sw32
+            return dot(f * f, sw32)
         return f
 
     key = ("EllipsoidalCoreShell", n, tab_params,

@@ -2,9 +2,10 @@
 """Numerically-stable special functions for form-factor kernels.
 
 These are the building blocks of the model bank, written dtype-polymorphic
-(float32 on TPU for the MC hot loop, float64 on host for golden validation).
+(float32 on the device for the MC hot loop, float64 on host for golden
+validation).
 Stability matters because the reference relies on float64 throughout, while
-the TPU compute path is float32: naive evaluation of expressions like
+the device compute path is float32: naive evaluation of expressions like
 ``3(sin x − x cos x)/x³`` loses all precision for small x from catastrophic
 cancellation, so every kernel here switches to a Taylor series below a
 dtype-aware threshold.

@@ -1,5 +1,5 @@
 # -*- coding: utf-8 -*-
-"""Multi-chip execution over a jax device mesh.
+"""Multi-device execution over a jax device mesh.
 
 The reference has no parallelism of any kind (SURVEY §2.13; the numReps
 ensemble is a sequential Python loop, src/mcsas/mcsas/mcsas.py:214).  Here:
@@ -9,7 +9,7 @@ ensemble is a sequential Python loop, src/mcsas/mcsas/mcsas.py:214).  Here:
   parallel, zero collectives until the final host gather.
 - **q axis (sequence parallel)**: for very fine q grids / smearing matrices
   the intensity bank is sharded along q inside ``shard_map``; the χ² fit's
-  reductions complete with ``psum`` over ICI (see
+  reductions complete with ``psum`` over the device interconnect (see
   :func:`mcsas_tpu.core.fitcore.solve_scale_bg`).
 """
 from .mesh import (make_mesh, rep_sharding, replicate_sharding,

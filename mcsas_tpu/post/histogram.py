@@ -30,6 +30,7 @@ from ..core.fitcore import agofs as agofs_fn
 from ..core.fitcore import make_constants, solve_scale_bg
 from ..data import SASData
 from ..models.base import BoundModel
+from ..ops.precision import dot
 
 WEIGHTINGS = ("vol", "num", "int", "surf")
 XSCALES = ("lin", "log")
@@ -218,7 +219,7 @@ def _accel_bank(bound: BoundModel, data: SASData, cfg: McSASConfig,
         wn = (bound.volume(pvec32) / np.float32(v_ref)) ** (
             2.0 * comp_exp)
         if smearing:
-            return (ffn * ffn) @ sw32 * wn
+            return dot(ffn * ffn, sw32) * wn
         return ffn * ffn * wn
 
     block = 512
@@ -231,8 +232,7 @@ def _accel_bank(bound: BoundModel, data: SASData, cfg: McSASConfig,
         if pad:
             flat = np.concatenate([flat, np.repeat(flat[-1:], pad, 0)])
         # dispatch every block before fetching: the results stay device
-        # arrays and come back in ONE device_get (the remote link pays
-        # ~4 ms RTT per blocking transfer)
+        # arrays and come back in ONE device_get
         parts = [jitted(jnp.asarray(flat[i:i + block]))
                  for i in range(0, len(flat), block)]
         bank = np.concatenate(jax.device_get(parts), axis=0)[:r * n]
@@ -280,7 +280,7 @@ def _post_pass_f64(bound: BoundModel, data: SASData, cfg: McSASConfig,
             ffv = bound.ff(jnp.asarray(grid), pvec)
         w = bound.volume(pvec) ** (2.0 * comp_exp)
         if smearing:
-            it = (ffv * ffv) @ jnp.asarray(data.smear_w) * w
+            it = dot(ffv * ffv, jnp.asarray(data.smear_w)) * w
         else:
             it = ffv * ffv * w
         return it, w, bound.absvolume(pvec), bound.surf(pvec)

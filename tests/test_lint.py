@@ -14,6 +14,7 @@ def test_lint_clean():
     import lint
     findings = lint.lint_paths([
         str(REPO / "mcsas_tpu"), str(REPO / "tests"), str(REPO / "tools"),
-        str(REPO / "bench.py"), str(REPO / "__graft_entry__.py")])
+        str(REPO / "bench.py"), str(REPO / "__graft_entry__.py"),
+        str(REPO / "chip_smoke.py")])
     msg = "\n".join(f"{p}:{ln}: {code} {m}" for p, ln, code, m in findings)
     assert not findings, f"lint findings:\n{msg}"

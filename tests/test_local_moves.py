@@ -61,7 +61,8 @@ def test_local_moves_accelerate_narrow_basin(sphere_data):
 
 def test_local_moves_in_pallas_kernel(sphere_data):
     cfg = cfg_for(0.5, use_pallas="on")
-    eng = McSASEngine(sphere_data, get_model("Sphere").bind(), cfg)
+    eng = McSASEngine(sphere_data, get_model("Sphere").bind(), cfg,
+                      interpret=True)
     assert eng.uses_pallas
     res = eng.run()
     lo, hi = eng.bound.ranges[0]

@@ -1,7 +1,9 @@
 # -*- coding: utf-8 -*-
-"""Fused Pallas MC kernel: validated in interpreter mode on CPU against the
-XLA scan path (same math, different RNG stream → statistical equivalence,
-plus exact internal-consistency invariants)."""
+"""GPU MC chunk kernel (Pallas, Triton route), validated on the CPU: the
+kernel runs in the Pallas interpreter (``interpret=True``, passed
+explicitly) against the XLA scan path — the same threefry proposal
+stream and the same candidate rows, so trajectories agree exactly — and
+its Triton lowering is built for CUDA without a card."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +14,7 @@ from mcsas_tpu.config import McSASConfig
 from mcsas_tpu.core.engine import McSASEngine
 from mcsas_tpu.core.fitcore import solve_scale_bg
 from mcsas_tpu.models import get_model
+from mcsas_tpu.ops import mc_kernel
 
 
 @pytest.fixture(scope="module")
@@ -19,13 +22,38 @@ def sphere_data(refdata):
     return data.load(refdata / "sasfit_sphere-10-1.dat")
 
 
-def make_engine(sphere_data, use_pallas, **kw):
+def make_engine(sphere_data, use_pallas, interpret=None, **kw):
     base = dict(num_contribs=40, num_reps=2, max_iterations=2000,
                 chunk_steps=250, candidates_per_step=4, seed=11,
                 max_retries=0, use_pallas=use_pallas)
     base.update(kw)
+    if interpret is None:
+        interpret = use_pallas != "off"
     return McSASEngine(sphere_data, get_model("Sphere").bind(),
-                       McSASConfig(**base))
+                       McSASConfig(**base), interpret=interpret)
+
+
+def _cyl_bound():
+    return get_model("CylindersIsotropic").bind(
+        active=("radius",), active_ranges={"radius": (1e-10, 5e-8)},
+        fixed={"useAspect": 1.0, "aspect": 10.0})
+
+
+def run_chunks(eng, keys, n):
+    state = eng._init_batch(keys)
+    ri = jnp.zeros((), jnp.int32)
+    for _ in range(n):
+        state, ri = eng._chunk_batch(state, ri)
+    return state, ri
+
+
+def assert_same_trajectory(st_k, st_x):
+    assert np.array_equal(np.asarray(st_k.rset), np.asarray(st_x.rset))
+    assert np.array_equal(np.asarray(st_k.n_moves),
+                          np.asarray(st_x.n_moves))
+    assert np.array_equal(np.asarray(st_k.n_iter), np.asarray(st_x.n_iter))
+    np.testing.assert_allclose(np.asarray(st_k.conval),
+                               np.asarray(st_x.conval), rtol=1e-5)
 
 
 @pytest.fixture(scope="module")
@@ -42,9 +70,17 @@ def pallas_state(sphere_data):
 
 
 def test_grid_lane_padded(pallas_state):
+    """The fit grid is padded to the next power of two (Triton blocks)
+    with zero-weight points."""
     eng, states, _ = pallas_state
-    assert eng.grid.shape[0] % 128 == 0
+    assert eng.data.count == 100 and eng.grid.shape[0] == 128
     assert np.asarray(eng.consts.u)[eng.data.count:].sum() == 0.0
+
+
+@pytest.mark.parametrize("n, padded", [(1, 1), (2, 2), (3, 4), (100, 128),
+                                       (128, 128), (129, 256)])
+def test_padded_len(n, padded):
+    assert mc_kernel.padded_len(n) == padded
 
 
 def test_descent_and_moves(pallas_state):
@@ -93,39 +129,77 @@ def test_params_within_range(pallas_state):
 
 
 def test_full_run_matches_xla_statistically(sphere_data):
-    """Same config, pallas vs XLA path: final chi2 after a fixed proposal
-    budget should land in the same range (different RNG streams)."""
-    budget = dict(max_iterations=6000, chunk_steps=500,
+    """Same config, kernel vs XLA path: the kernel consumes the scan
+    path's own proposal stream, so whole runs (drive, retries) agree
+    exactly — contributions, proposal counts and χ²."""
+    budget = dict(max_iterations=6000, chunk_steps=250,
                   candidates_per_step=4, num_contribs=40, num_reps=3,
-                  show_incomplete=True)
+                  show_incomplete=True, max_retries=1)
     r_pal = make_engine(sphere_data, "on", **budget).run()
     r_xla = make_engine(sphere_data, "off", **budget).run()
-    assert np.all(r_pal.n_iter == r_xla.n_iter)
-    # chi2 after the same budget: within 2x of each other
-    ratio = r_pal.conval.mean() / r_xla.conval.mean()
-    assert 0.5 < ratio < 2.0
+    assert r_pal.used_pallas and not r_xla.used_pallas
+    assert np.array_equal(r_pal.contribs, r_xla.contribs)
+    assert np.array_equal(r_pal.n_iter, r_xla.n_iter)
+    assert r_pal.total_iters == r_xla.total_iters
+    np.testing.assert_allclose(r_pal.conval, r_xla.conval, rtol=1e-5)
 
 
 def test_auto_mode_off_on_cpu(sphere_data):
-    eng = make_engine(sphere_data, "auto")
+    eng = make_engine(sphere_data, "auto", interpret=False)
     # tests pin the default device to CPU → auto must choose the XLA path
     assert not eng.uses_pallas
 
 
+def test_on_mode_raises_off_gpu(sphere_data):
+    """'on' needs a GPU compute device; the interpreter is never chosen
+    implicitly."""
+    with pytest.raises(ValueError, match="GPU"):
+        make_engine(sphere_data, "on", interpret=False)
+
+
+def test_auto_mode_selects_kernel_on_gpu(sphere_data, refdata,
+                                         monkeypatch):
+    """'auto' takes the kernel when the compute device is a GPU and the
+    model is eligible, and the XLA path for an ineligible one."""
+    class _Gpu:
+        platform = "gpu"
+
+    monkeypatch.setattr(McSASEngine, "_compute_device",
+                        staticmethod(lambda: _Gpu()))
+    assert make_engine(sphere_data, "auto", interpret=False).uses_pallas
+    # a quadrature model without its table is not eligible
+    cyl = McSASEngine(sphere_data, _cyl_bound(),
+                      McSASConfig(num_contribs=10, num_reps=1,
+                                  table_ff="off"))
+    assert not cyl.uses_pallas
+
+
+def test_compiled_kernel_refuses_cpu(sphere_data):
+    """A kernel built without interpret=True is the Triton program: on
+    the CPU it fails instead of falling back to the interpreter."""
+    eng = make_engine(sphere_data, "on", interpret=True)
+    chunk = mc_kernel.build_chunk_fn(eng)
+    state = eng._init_batch(jax.random.split(jax.random.PRNGKey(0), 2))
+    with pytest.raises(Exception, match="(?i)triton|gpu|cuda|interpret"):
+        chunk(state, jnp.zeros((), jnp.int32))
+
+
 def test_on_mode_rejects_unsupported(refdata):
     d = data.load(refdata / "sasfit_sphere-10-1.dat")
-    cfg = McSASConfig(num_contribs=10, num_reps=1, use_pallas="on")
-    with pytest.raises(ValueError):
-        McSASEngine(d, get_model("CylindersIsotropic").bind(), cfg)
+    cfg = McSASConfig(num_contribs=10, num_reps=1, use_pallas="on",
+                      table_ff="off")
+    with pytest.raises(ValueError, match="eligible"):
+        McSASEngine(d, _cyl_bound(), cfg, interpret=True)
 
 
 def test_logdec_generator_in_kernel(refdata):
-    """GaussianChain uses the logdec1 proposal transform in-kernel."""
+    """GaussianChain's logdec1 proposals ride the kernel's stream."""
     d = data.load(refdata / "sasfit_gauss2-5-1.5-2-1.dat")
     cfg = McSASConfig(num_contribs=20, num_reps=1, max_iterations=500,
                       chunk_steps=250, candidates_per_step=2, seed=0,
                       max_retries=0, use_pallas="on", show_incomplete=True)
-    eng = McSASEngine(d, get_model("GaussianChain").bind(), cfg)
+    eng = McSASEngine(d, get_model("GaussianChain").bind(), cfg,
+                      interpret=True)
     assert eng.uses_pallas
     res = eng.run()
     assert np.all(np.isfinite(res.conval))
@@ -134,38 +208,35 @@ def test_logdec_generator_in_kernel(refdata):
     assert res.contribs.max() <= hi * (1 + 1e-6)
 
 
-def test_rep_blocked_grid(sphere_data):
-    """The kernel grids over repetition blocks when the ensemble exceeds
-    VMEM: forcing 1-rep blocks (4 programs) must still descend, move,
-    respect ranges, and leave every repetition's state independent."""
-    from mcsas_tpu.ops import mc_kernel
-    eng = make_engine(sphere_data, "on", num_reps=4)
-    chunk = mc_kernel.build_chunk_fn(eng, rep_block=1)
-    state = eng._init_batch(jax.random.split(jax.random.PRNGKey(9), 4))
-    chi0 = np.asarray(state.conval)
-    ri = jnp.zeros((), jnp.int32)
-    for _ in range(3):
-        state, ri = chunk(state, ri)
-    chi = np.asarray(state.conval)
-    assert np.all(np.isfinite(chi))
-    assert np.all(chi <= chi0 + 1e-4)
-    assert np.asarray(state.n_moves).min() > 0
-    lo, hi = eng.bound.ranges[0]
-    r = np.asarray(state.rset)
-    assert r.min() >= lo - 1e-15 and r.max() <= hi * (1 + 1e-6)
-    # per-block seeds: different blocks draw different proposal streams
-    assert not np.array_equal(np.asarray(state.rset[0]),
-                              np.asarray(state.rset[1]))
-    # blocked and unblocked kernels agree statistically (same math):
-    # rep-0 conval magnitudes in the same decade after equal budgets
-    chunk_full = mc_kernel.build_chunk_fn(eng, rep_block=4)
-    s2 = eng._init_batch(jax.random.split(jax.random.PRNGKey(9), 4))
-    ri2 = jnp.zeros((), jnp.int32)
-    for _ in range(3):
-        s2, ri2 = chunk_full(s2, ri2)
-    assert int(ri2) == int(ri)
-    ratio = np.asarray(s2.conval) / chi
-    assert np.all(ratio < 30) and np.all(ratio > 1 / 30)
+@pytest.mark.parametrize("kw", [
+    dict(num_reps=1),                      # one program
+    dict(candidates_per_step=1),           # reference stepping, K = 1
+    dict(candidates_per_step=3),           # K padded to 4, masked
+    dict(find_background=False),
+    dict(positive_background=True),
+], ids=["one-rep", "k1", "k3-padded", "no-bg", "pos-bg"])
+def test_kernel_matches_scan_exactly(sphere_data, kw):
+    """Shapes and solve variants: after equal step budgets the kernel
+    and the scan path agree exactly."""
+    ek = make_engine(sphere_data, "on", chunk_steps=40, **kw)
+    ex = make_engine(sphere_data, "off", chunk_steps=40, **kw)
+    keys = jax.random.split(jax.random.PRNGKey(4), ek.cfg.num_reps)
+    st_k, ri_k = run_chunks(ek, keys, 2)
+    st_x, ri_x = run_chunks(ex, keys, 2)
+    assert int(ri_k) == int(ri_x)
+    assert_same_trajectory(st_k, st_x)
+    assert np.asarray(st_k.n_moves).min() > 0
+
+
+def test_seg_steps(sphere_data, monkeypatch):
+    """A launch covers chunk_steps, at most num_contribs steps with local
+    moves (distinct slots), and at most the row-stream budget."""
+    assert mc_kernel.seg_steps(make_engine(sphere_data, "on")) == 250
+    assert mc_kernel.seg_steps(make_engine(
+        sphere_data, "on", local_moves=0.5)) == 40
+    # per step: 2 reps x 4 candidates x 128 points x 4 bytes = 4 KiB
+    monkeypatch.setattr(mc_kernel, "_ROWS_BUDGET", 100 * 4096)
+    assert mc_kernel.seg_steps(make_engine(sphere_data, "on")) == 100
 
 
 def _cyl_engine(sphere_data, use_pallas, **kw):
@@ -174,37 +245,26 @@ def _cyl_engine(sphere_data, use_pallas, **kw):
                 candidates_per_step=8, seed=7, max_retries=0,
                 use_pallas=use_pallas)
     base.update(kw)
-    bound = get_model("CylindersIsotropic").bind(
-        active=("radius",), active_ranges={"radius": (1e-10, 5e-8)},
-        fixed={"useAspect": 1.0, "aspect": 10.0})
-    return McSASEngine(sphere_data, bound, McSASConfig(**base))
+    return McSASEngine(sphere_data, _cyl_bound(), McSASConfig(**base),
+                       interpret=use_pallas != "off")
 
 
 def test_prefetch_matches_scan_exactly(sphere_data, monkeypatch):
-    """The prefetch kernel consumes the SAME threefry proposal stream and
-    the SAME intensity_row evaluations as the XLA scan path — after equal
-    step budgets the ensembles must agree bitwise (the only difference,
+    """Table tier: the kernel consumes the SAME threefry proposal stream
+    and the SAME intensity_row evaluations as the XLA scan path — after
+    equal step budgets the ensembles agree bitwise (the only difference,
     solve reduction association, changes no accept decision here)."""
     monkeypatch.setenv("MCSAS_TPU_TABLE_RES_CAP", "64")
     ep = _cyl_engine(sphere_data, "on")
     ex = _cyl_engine(sphere_data, "off")
-    assert ep.uses_prefetch and ep.uses_table and not ep.uses_pallas
-    assert not ex.uses_prefetch
-    from mcsas_tpu.ops import mc_kernel
-    assert mc_kernel.prefetch_seg_steps(ep) == 64  # = chunk_steps here
+    assert ep.uses_pallas and ep.uses_table
+    assert not ex.uses_pallas
+    assert mc_kernel.seg_steps(ep) == 64  # = chunk_steps here
     keys = jax.random.split(jax.random.PRNGKey(0), 4)
-    st_p = ep._init_batch(keys)
-    st_x = ex._init_batch(keys)
-    ri_p = ri_x = jnp.zeros((), jnp.int32)
-    for _ in range(2):
-        st_p, ri_p = ep._chunk_batch(st_p, ri_p)
-        st_x, ri_x = ex._chunk_batch(st_x, ri_x)
+    st_p, ri_p = run_chunks(ep, keys, 2)
+    st_x, ri_x = run_chunks(ex, keys, 2)
     assert int(ri_p) == int(ri_x)
-    assert np.array_equal(np.asarray(st_p.rset), np.asarray(st_x.rset))
-    assert np.array_equal(np.asarray(st_p.n_moves),
-                          np.asarray(st_x.n_moves))
-    np.testing.assert_allclose(np.asarray(st_p.conval),
-                               np.asarray(st_x.conval), rtol=1e-5)
+    assert_same_trajectory(st_p, st_x)
     nq = ex.consts.y.shape[0]
     np.testing.assert_allclose(np.asarray(st_p.ft)[:, :nq],
                                np.asarray(st_x.ft), rtol=2e-4)
@@ -212,238 +272,77 @@ def test_prefetch_matches_scan_exactly(sphere_data, monkeypatch):
     assert np.asarray(st_p.ibank)[:, :, nq:].sum() == 0.0
 
 
-def test_auto_mode_mosaic_runtime_fallback(sphere_data, monkeypatch):
-    """'auto' must DEGRADE on a Mosaic compile failure surfacing at run
-    time (engine.run's wrapper), not crash the fit; 'on' stays a force
-    override and re-raises.  The real failure needs a backend bug (e.g.
-    the pre-fix single-rep multi_reduction), so it is simulated here."""
-    class FakeMosaic(RuntimeError):
-        pass
-
-    def boom(*a, **k):
-        raise FakeMosaic(
-            "Mosaic failed to compile TPU kernel: Not implemented")
-
-    cfg = dict(num_reps=2, max_iterations=500,
-               convergence_criterion=1e9, show_incomplete=True)
-    eng = make_engine(sphere_data, "on", **cfg)
-    assert eng.uses_pallas
-    # simulate a TPU 'auto' engine that selected the kernel tier
-    eng.cfg = eng.cfg.replace(use_pallas="auto")
-    monkeypatch.setattr(eng, "_run_attempts", boom)
-    res = eng.run()
-    assert not res.used_pallas          # completed on the XLA scan path
-    assert res.conval.shape == (2,)
-    assert np.isfinite(res.conval).all()
-
-    eng2 = make_engine(sphere_data, "on", **cfg)
-    monkeypatch.setattr(eng2, "_run_attempts", boom)
-    with pytest.raises(FakeMosaic):
-        eng2.run()                      # 'on' re-raises
-
-    # unrelated errors propagate even under 'auto'
-    eng3 = make_engine(sphere_data, "on", **cfg)
-    eng3.cfg = eng3.cfg.replace(use_pallas="auto")
-    monkeypatch.setattr(
-        eng3, "_run_attempts",
-        lambda *a, **k: (_ for _ in ()).throw(ValueError("no")))
-    with pytest.raises(ValueError):
-        eng3.run()
-
-
-def test_mosaic_fallback_proven_per_executable(sphere_data, monkeypatch):
-    """Proven-ness is per step executable: a cached engine whose DRIVE
-    launch is proven must still degrade when the standalone chunk
-    executable (progress-callback path, a different XLA program)
-    first-fails Mosaic — while a Mosaic-flavored error in an
-    already-proven mode re-raises (runtime/watchdog failure, not a
-    compile failure; restarting would silently discard the run)."""
-    class FakeMosaic(RuntimeError):
-        pass
-
-    cfg = dict(num_reps=2, max_iterations=500,
-               convergence_criterion=1e9, show_incomplete=True)
-    eng = make_engine(sphere_data, "on", **cfg)
-    eng.cfg = eng.cfg.replace(use_pallas="auto")
-    eng.run()                             # proves whatever mode ran
-    proven_mode = eng._active_step_mode
-    assert proven_mode in eng._proven_step_modes
-
-    def boom_in(mode):
-        def boom(*a, **k):
-            eng._active_step_mode = mode  # _run_attempts sets this first
-            raise FakeMosaic(
-                "Mosaic failed to compile TPU kernel: Not implemented")
-        return boom
-
-    # same (proven) executable: runtime failure semantics → re-raise
-    monkeypatch.setattr(eng, "_run_attempts", boom_in(proven_mode))
-    with pytest.raises(FakeMosaic):
-        eng.run()
-
-    # other (never-compiled) executable: compile failure → degrade
-    other = "chunk" if proven_mode == "drive" else "drive"
-    assert other not in eng._proven_step_modes
-    monkeypatch.setattr(eng, "_run_attempts", boom_in(other))
-    res = eng.run()
-    assert not res.used_pallas
-
-
-def test_single_rep_block(sphere_data, monkeypatch):
-    """num_reps=1 (and per-device rep shards of 1 on a mesh) must keep
-    both kernels alive: the one-hot row sums lower as matmuls
-    (mc_kernel._onehot_rowsum) because Mosaic cannot legalize the
-    (1, K)→(1, 1) vector.multi_reduction at a single-rep block
-    ("Not implemented: Offset change", measured on v5e).  Interpret mode
-    cannot reproduce the legalization failure itself, so this exercises
-    the rewritten path at rb=1 and certifies the prefetch variant stays
-    bitwise-equal to the scan; the chip-side proof is
-    tools/rep_scaling.py --reps 1 (BENCHMARKS.md rep-scaling table)."""
-    e1 = make_engine(sphere_data, "on", num_reps=1)
-    assert e1.uses_pallas
-    st = e1._init_batch(jax.random.split(jax.random.PRNGKey(3), 1))
-    c0 = float(np.asarray(st.conval)[0])
-    ri = jnp.zeros((), jnp.int32)
-    for _ in range(2):
-        st, ri = e1._chunk_batch(st, ri)
-    assert float(np.asarray(st.conval)[0]) < c0
-    assert int(np.asarray(st.n_moves)[0]) > 0
-
-    monkeypatch.setenv("MCSAS_TPU_TABLE_RES_CAP", "64")
-    ep = _cyl_engine(sphere_data, "on", num_reps=1)
-    ex = _cyl_engine(sphere_data, "off", num_reps=1)
-    assert ep.uses_prefetch
-    keys = jax.random.split(jax.random.PRNGKey(0), 1)
-    st_p = ep._init_batch(keys)
-    st_x = ex._init_batch(keys)
-    ri = jnp.zeros((), jnp.int32)
-    st_p, _ = ep._chunk_batch(st_p, ri)
-    st_x, _ = ex._chunk_batch(st_x, ri)
-    assert np.array_equal(np.asarray(st_p.rset), np.asarray(st_x.rset))
-    assert np.array_equal(np.asarray(st_p.n_moves),
-                          np.asarray(st_x.n_moves))
-
-
 def test_prefetch_smeared_table(refdata, monkeypatch):
-    """Smeared-intensity tables ride the prefetch kernel unchanged: rows
-    are baked against the dataset's own contraction, so the kernel needs
-    no smearing math.  Exact agreement with the scan path."""
+    """Smeared-intensity tables ride the kernel unchanged: rows are baked
+    against the dataset's own contraction, so the kernel needs no
+    smearing math.  Exact agreement with the scan path."""
     monkeypatch.setenv("MCSAS_TPU_TABLE_RES_CAP", "64")
     from mcsas_tpu.data import DataConfig, TrapezoidSmearing
     dc = DataConfig(smearing=TrapezoidSmearing(
         do_smear=True, n_steps=9, umbra=0.05e9, penumbra=0.2e9))
     d = data.load(refdata / "sasfit_sphere-10-1.dat", config=dc)
-    bound = get_model("CylindersIsotropic").bind(
-        active=("radius",), active_ranges={"radius": (1e-10, 5e-8)},
-        fixed={"useAspect": 1.0, "aspect": 10.0})
+    bound = _cyl_bound()
     cfg = dict(num_reps=2, num_contribs=30, convergence_criterion=2.0,
                max_iterations=200000, chunk_steps=32,
                candidates_per_step=4, seed=3, max_retries=0)
-    ep = McSASEngine(d, bound, McSASConfig(use_pallas="on", **cfg))
+    ep = McSASEngine(d, bound, McSASConfig(use_pallas="on", **cfg),
+                     interpret=True)
     ex = McSASEngine(d, bound, McSASConfig(use_pallas="off", **cfg))
-    assert ep.uses_prefetch and ep.uses_table
+    assert ep.uses_pallas and ep.uses_table
     keys = jax.random.split(jax.random.PRNGKey(5), 2)
-    st_p = ep._init_batch(keys)
-    st_x = ex._init_batch(keys)
-    ri = jnp.zeros((), jnp.int32)
-    st_p, ri_p = ep._chunk_batch(st_p, ri)
-    st_x, ri_x = ex._chunk_batch(st_x, ri)
+    st_p, ri_p = run_chunks(ep, keys, 1)
+    st_x, ri_x = run_chunks(ex, keys, 1)
     assert int(ri_p) == int(ri_x)
-    assert np.array_equal(np.asarray(st_p.rset), np.asarray(st_x.rset))
-    assert np.asarray(st_p.n_moves).min() >= 0
+    assert_same_trajectory(st_p, st_x)
 
 
 def test_prefetch_local_moves_match_scan(sphere_data, monkeypatch):
-    """Local moves ride the prefetch kernel: a segment visits strictly
-    distinct slots (seg <= num_contribs), so every local proposal is
-    computable from the segment-start rset — the stream stays
-    bitwise-identical to the XLA scan path."""
+    """Local moves ride the kernel: a segment visits strictly distinct
+    slots (seg <= num_contribs), so every local proposal is computable
+    from the segment-start rset — the stream stays bitwise-identical to
+    the XLA scan path chunked at the same length."""
     monkeypatch.setenv("MCSAS_TPU_TABLE_RES_CAP", "64")
-    from mcsas_tpu.ops import mc_kernel
     # chunk_steps=64 > num_contribs=50: the segment cap must bind
     ep = _cyl_engine(sphere_data, "on", local_moves=0.5)
-    ex = _cyl_engine(sphere_data, "off", local_moves=0.5)
-    assert ep.uses_prefetch and ep.uses_table and not ep.uses_pallas
-    assert mc_kernel.prefetch_seg_steps(ep) == 50  # = num_contribs
-    keys = jax.random.split(jax.random.PRNGKey(2), 4)
-    st_p = ep._init_batch(keys)
-    st_x = ex._init_batch(keys)
-    ri_p = ri_x = jnp.zeros((), jnp.int32)
-    # key-stream alignment: each prefetch segment splits the rep key once
-    # and draws seg=50 steps, so the scan side must chunk at 50 too
+    assert ep.uses_pallas and ep.uses_table
+    assert mc_kernel.seg_steps(ep) == 50  # = num_contribs
     ex50 = _cyl_engine(sphere_data, "off", local_moves=0.5,
                        chunk_steps=50)
-    for _ in range(3):
-        st_p, ri_p = ep._chunk_batch(st_p, ri_p)
-        st_x, ri_x = ex50._chunk_batch(st_x, ri_x)
+    keys = jax.random.split(jax.random.PRNGKey(2), 4)
+    st_p, ri_p = run_chunks(ep, keys, 3)
+    st_x, ri_x = run_chunks(ex50, keys, 3)
     assert int(ri_p) == int(ri_x)
-    assert np.array_equal(np.asarray(st_p.rset), np.asarray(st_x.rset))
-    assert np.array_equal(np.asarray(st_p.n_moves),
-                          np.asarray(st_x.n_moves))
+    assert_same_trajectory(st_p, st_x)
     assert np.asarray(st_p.n_moves).min() > 0
-    np.testing.assert_allclose(np.asarray(st_p.conval),
-                               np.asarray(st_x.conval), rtol=1e-5)
 
 
-def test_prefetch_eligibility_gates(sphere_data, monkeypatch):
-    monkeypatch.setenv("MCSAS_TPU_TABLE_RES_CAP", "64")
-    # elementwise models take the fully fused kernel, not the prefetch
+def test_prefetch_eligibility_gates(sphere_data, refdata, monkeypatch):
+    """Elementwise models and table-tier models are eligible; smeared
+    elementwise models (no table) and Kholodenko's smeared table, whose
+    rows live on the flattened locs grid, are not."""
+    monkeypatch.setenv("MCSAS_TPU_TABLE_RES_CAP", "32")
+    from mcsas_tpu.data import DataConfig, TrapezoidSmearing
     es = make_engine(sphere_data, "on", num_reps=2)
-    assert es.uses_pallas and not es.uses_prefetch
-
-
-def test_prefetch_rep_blocked(sphere_data, monkeypatch):
-    """Multi-block grids (rep_block < num_reps) keep per-rep state
-    independent and consistent with the scan path."""
-    monkeypatch.setenv("MCSAS_TPU_TABLE_RES_CAP", "64")
-    from mcsas_tpu.ops import mc_kernel
-    ep = _cyl_engine(sphere_data, "on")
-    ex = _cyl_engine(sphere_data, "off")
-    chunk = mc_kernel.build_prefetch_chunk_fn(ep, rep_block=2,
-                                              seg_steps=32)
-    keys = jax.random.split(jax.random.PRNGKey(1), 4)
-    st_p = ep._init_batch(keys)
-    st_x = ex._init_batch(keys)
-    ri = jnp.zeros((), jnp.int32)
-    st_p, ri_p = chunk(st_p, ri)
-    assert int(ri_p) == 32 % 50
-    # same 32 steps on the scan path: use a 32-step chunk engine
-    ex32 = _cyl_engine(sphere_data, "off", chunk_steps=32)
-    st_x, _ = ex32._chunk_batch(st_x, ri)
-    assert np.array_equal(np.asarray(st_p.rset), np.asarray(st_x.rset))
-
-
-def test_rep_block_size_divisor():
-    """rep_block_size picks the largest VMEM-fitting divisor."""
-    from mcsas_tpu.ops import mc_kernel
-
-    class _Cfg:
-        num_reps = 12
-        num_contribs = 300
-        candidates_per_step = 128
-
-    class _Bound:
-        n_active = 1
-
-    class _Eng:
-        cfg = _Cfg()
-        bound = _Bound()
-        grid = jnp.zeros((128,), jnp.float32)
-
-    rb = mc_kernel.rep_block_size(_Eng())
-    assert rb > 0 and 12 % rb == 0
-    assert mc_kernel.fits_vmem(_Eng(), n_reps=rb)
+    assert es.uses_pallas and not es.uses_table
+    dc = DataConfig(smearing=TrapezoidSmearing(
+        do_smear=True, n_steps=5, umbra=0.05e9, penumbra=0.2e9))
+    ds = data.load(refdata / "sasfit_sphere-10-1.dat", config=dc)
+    cfg = McSASConfig(num_contribs=10, num_reps=1, table_ff="on")
+    sm = McSASEngine(ds, get_model("Sphere").bind(), cfg, interpret=True)
+    assert not sm.uses_pallas
+    dk = data.load(refdata / "sasfit_kho-1-10-1000.dat", config=dc)
+    kh = McSASEngine(dk, get_model("Kholodenko").bind(), cfg,
+                     interpret=True)
+    assert kh.uses_table and not kh.uses_pallas
 
 
 def test_prefetch_kholodenko_partial_table(refdata, monkeypatch):
     """Kholodenko's PARTIAL table (backbone tabulated, exact q-axis
-    cross-section applied in the lookup) rides the prefetch kernel with
-    local moves: stream stays bitwise-identical to the scan path at
+    cross-section applied in the lookup) rides the kernel with local
+    moves: stream stays bitwise-identical to the scan path at
     seg-aligned chunking."""
     monkeypatch.setenv("MCSAS_TPU_TABLE_RES_CAP", "32")
-    from mcsas_tpu import data as mtdata
-    from mcsas_tpu.ops import mc_kernel
-    d = mtdata.load(refdata / "sasfit_kho-1-10-1000.dat")
+    d = data.load(refdata / "sasfit_kho-1-10-1000.dat")
     bound = get_model("Kholodenko").bind()
 
     def eng(mode, chunk):
@@ -451,22 +350,42 @@ def test_prefetch_kholodenko_partial_table(refdata, monkeypatch):
             num_reps=2, num_contribs=40, convergence_criterion=2.0,
             max_iterations=100000, chunk_steps=chunk,
             candidates_per_step=4, seed=5, max_retries=0,
-            local_moves=0.5, use_pallas=mode, table_ff="on"))
+            local_moves=0.5, use_pallas=mode, table_ff="on"),
+            interpret=mode != "off")
 
     ep = eng("on", 64)
-    assert ep.uses_prefetch and ep.uses_table and not ep.uses_pallas
-    seg = mc_kernel.prefetch_seg_steps(ep)
+    assert ep.uses_pallas and ep.uses_table
+    seg = mc_kernel.seg_steps(ep)
     assert seg == 40  # local moves cap the segment at num_contribs
     ex = eng("off", seg)
     keys = jax.random.split(jax.random.PRNGKey(1), 2)
-    st_p = ep._init_batch(keys)
-    st_x = ex._init_batch(keys)
-    ri_p = ri_x = jnp.zeros((), jnp.int32)
-    for _ in range(3):
-        st_p, ri_p = ep._chunk_batch(st_p, ri_p)
-        st_x, ri_x = ex._chunk_batch(st_x, ri_x)
+    st_p, ri_p = run_chunks(ep, keys, 3)
+    st_x, ri_x = run_chunks(ex, keys, 3)
     assert int(ri_p) == int(ri_x)
-    assert np.array_equal(np.asarray(st_p.rset), np.asarray(st_x.rset))
-    assert np.array_equal(np.asarray(st_p.n_moves),
-                          np.asarray(st_x.n_moves))
+    assert_same_trajectory(st_p, st_x)
     assert np.asarray(st_p.n_moves).min() > 0
+
+
+@pytest.mark.parametrize("family", ["sphere", "gaussian-chain",
+                                    "cylinders-isotropic"])
+def test_kernel_lowers_for_cuda(family, monkeypatch):
+    """The Triton program itself (not the interpreter) lowers for CUDA at
+    the production widths (K=128, 300 contributions, 10 repetitions):
+    block shapes, dtypes and primitives are all accepted by the Pallas
+    Triton lowering.  Only compiling it needs the card."""
+    import sys
+    import pathlib
+    monkeypatch.setenv("MCSAS_TPU_TABLE_RES_CAP", "32")
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]
+                           / "tools"))
+    import drive_audit as da
+    entry = {e[0]: e for e in da.CONFIGS}[family]
+    d, bound, cfg = da.build_config(entry)
+    eng = McSASEngine(d, bound, cfg.replace(use_pallas="on"),
+                      interpret=True)
+    chunk = mc_kernel.build_chunk_fn(eng)
+    keys = jax.random.split(jax.random.PRNGKey(0), cfg.num_reps)
+    state = jax.eval_shape(eng._init_batch, keys)
+    text = chunk.trace(state, jnp.zeros((), jnp.int32)).lower(
+        lowering_platforms=("cuda",)).as_text()
+    assert "mcsas_chunk" in text

@@ -186,7 +186,7 @@ def test_accel_post_tier_matches_cpu_f64():
     """The accelerator-assisted post tier (exact rule, normalized f32
     bank, f64 reductions) must match the straight f64 CPU pass within
     mixed-precision tolerance on a smeared quadrature model — the case
-    post_compute='auto' selects it for on TPU."""
+    post_compute='auto' selects it for on a GPU."""
     import sys
     sys.path.insert(0, str(__import__("pathlib").Path(
         __file__).resolve().parent))

@@ -194,9 +194,8 @@ def test_engine_with_table_descends(sphere_data):
         active=("radius",), active_ranges={"radius": (0.5 * NM, 300 * NM)})
     eng = McSASEngine(sphere_data, bound, cfg)
     assert eng.uses_table
-    # table bodies ride the BOUNDED single-launch drive (trip-capped
-    # while_loop: amortizes the per-chunk RTT without a multi-minute
-    # launch that would trip the remote worker watchdog)
+    # table bodies ride the BOUNDED single-launch drive (a while_loop of
+    # at most 32 chunks per launch)
     assert eng._drive is not None
     state = eng._init_batch(jax.random.split(jax.random.PRNGKey(0), 2))
     chi0 = np.asarray(state.conval)

@@ -7,7 +7,7 @@ cross-device collectives on a (R, 1) mesh — mcsas_tpu/parallel/spmd.py).
 Multi-chip throughput is therefore (this curve) x (chip count), so the
 honest single-chip basis for the scaling claim is how aggregate
 proposals/s grows with the rep batch B hosted on ONE chip: flat
-per-rep cost until the VPU saturates, then linear aggregate gains.
+per-rep cost until the card saturates, then linear aggregate gains.
 
 Wall-clock per fit grows mildly with B because the drive runs until the
 SLOWEST rep converges (max of iid convergence times) — the same
@@ -67,9 +67,7 @@ def main():
             "total_proposals": int(res.total_iters),
             "converged": int(res.converged.sum()),
             "max_chi2": round(float(res.conval.max()), 4),
-            # guard against the 'auto' runtime Mosaic fallback silently
-            # publishing scan-path numbers as the kernel scaling basis
-            "used_pallas": bool(res.used_pallas),
+            "kernel": bool(res.used_pallas),
         }
         rows.append(row)
         print(json.dumps(row), flush=True)

@@ -1,11 +1,11 @@
 #!/usr/bin/env python
 # -*- coding: utf-8 -*-
 """Suite statistics: run `bench.py --suite` N times and report
-median ± spread per config family (VERDICT r4 weak #6 — single-run
-suite rows swing ±0.2 s on the flaky remote link; medians over N>=5
-make the claims sturdy).
+median ± spread per config family (single-run suite rows vary; medians
+over N>=5 make the claims sturdy).
 
-Runs sequentially in subprocesses (one TPU process at a time).
+Runs sequentially in subprocesses (one process at a time may hold the
+card).
 
 Usage: python tools/suite_stats.py [--runs 5] [--out suite_stats.json]
 """
